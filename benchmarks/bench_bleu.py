@@ -4,7 +4,7 @@ import os
 import subprocess
 import time
 
-from lrcn_tpu.evaluation import bleu as B
+from lrcn_jax.evaluation import bleu as B
 
 EVAL = "/root/reference/eval"
 

@@ -1,8 +1,7 @@
 """END-TO-END feature extraction throughput: disk JPEG -> fc7 store.
 
-bench_vgg.py's 5,141 img/s is the pure-device number (random tensors
-already in HBM).  The real pipeline — what the runbook's "~25 min for
-COCO" claim rests on — includes host JPEG decode/resize/crop, the
+bench_vgg.py times the pure-device forward (random tensors already in
+device memory).  The real pipeline includes host JPEG decode/resize/crop, the
 host->device transfer, and periodic atomic store snapshots.  This
 bench measures that whole path (reference counterpart: the per-image
 interpreter loop, lrcn.jl:190-221) and separates the host-decode
@@ -58,8 +57,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from lrcn_tpu.data.images import extract_features, load_batch_native
-    from lrcn_tpu.models import vgg
+    from lrcn_jax.data.images import extract_features, load_batch_native
+    from lrcn_jax.models import vgg
 
     root = tempfile.mkdtemp(prefix="lrcn_bench_extract_")
     try:

@@ -9,8 +9,7 @@ building — i.e. what `lrcn generate` actually delivers per wall-second.
 
 Usage:  python benchmarks/bench_generate.py [--n 8192] [--beam 3]
 
-Reference scope: generation is lrcn.jl:127-160 (batch-1 host loop); the
-committed numbers live in BENCH_DETAIL.md.
+Reference scope: generation is lrcn.jl:127-160 (batch-1 host loop).
 """
 
 import argparse
@@ -20,11 +19,11 @@ import time
 import jax
 import numpy as np
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.core.vocab import Vocab
-from lrcn_tpu.data.feature_store import FeatureStore
-from lrcn_tpu.decode.writer import generate_captions
-from lrcn_tpu.models import lrcn
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.core.vocab import Vocab
+from lrcn_jax.data.feature_store import FeatureStore
+from lrcn_jax.decode.writer import generate_captions
+from lrcn_jax.models import lrcn
 
 
 def main():

@@ -4,13 +4,14 @@ Full end-to-end step: uint8 images -> on-device mean-subtract -> VGG-16
 fc7 (jax.checkpoint remat) -> L1-normalize -> decoder loss -> grads for
 BOTH param sets -> dual-lr Adam.  Measures:
 
-- single-step dispatch wall (the round-2 number: 338 img/s at B=128);
-- K-steps-per-dispatch scanned wall (same amortization that fixed the
-  decoder trainer's 4.3x dispatch gap);
+- single-step dispatch wall;
+- K-steps-per-dispatch scanned wall (the same amortization as the
+  decoder trainer's scanned steps);
 - device time of the scanned program (utils/profiling), so the wall /
-  device gap is recorded rather than inferred (round-2 verdict item).
+  device gap is recorded rather than inferred.
 
-Run on a real TPU chip; syncs via scalar host transfer (see README.md).
+Run on the GPU; each timed region ends when its scalar result reaches
+the host.
 """
 import time
 
@@ -18,10 +19,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.models import vgg
-from lrcn_tpu.models.joint import JointTrainStep, make_joint_optimizer
-from lrcn_tpu.utils.profiling import measure_device_time_ms
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.models import vgg
+from lrcn_jax.models.joint import JointTrainStep, make_joint_optimizer
+from lrcn_jax.utils.profiling import measure_device_time_ms
 
 cfg = LRCNConfig(hidden=(1000, 1000), embed=1000, vocab_size=8800,
                  dropout=0.4)

@@ -3,10 +3,9 @@
 Hammers ``CaptionService`` with concurrent client threads (each sending
 one-image requests, the worst case for batching) and reports served
 captions/s plus latency percentiles at several offered concurrencies.
-The offline ceiling is the per-batch beam dispatch (~16.5k captions/s at
-B=256, BENCH_DETAIL.md) — serving pays queueing + padding on top; the
-gap to the scanned offline flagship (24k) is the price of request-level
-latency.
+The offline ceiling is the per-batch beam dispatch at B=256 — serving
+pays queueing + padding on top; the gap to the scanned offline flagship
+is the price of request-level latency.
 """
 import threading
 import time
@@ -15,11 +14,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.core.vocab import Vocab
-from lrcn_tpu.models import lrcn
-from lrcn_tpu.data.feature_store import FeatureStore
-from lrcn_tpu.serve import CaptionService
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.core.vocab import Vocab
+from lrcn_jax.models import lrcn
+from lrcn_jax.data.feature_store import FeatureStore
+from lrcn_jax.serve import CaptionService
 
 cfg = LRCNConfig(hidden=(1000, 1000), embed=1000, vocab_size=8800)
 vocab = Vocab([f"w{i}" for i in range(cfg.vocab_size - 3)])

@@ -1,10 +1,8 @@
 """Burst drain rate A/B: per-batch dispatch vs ONE grouped scanned
 dispatch, for every serving path that absorbs backlogs.
 
-Round 3 measured the native pump's grouped drain at 2.0x the per-batch
-rate (5.8k -> 11.7k captions/s) but left the Python DynamicBatcher id
-path and mesh serving on per-batch dispatch.  Round 4 wired the grouped
-drain into both; this bench commits the same A/B for them:
+The native pump, the Python DynamicBatcher id path and mesh serving all
+drain backlogs in grouped dispatches; this bench runs the A/B for each:
 
 1. raw path: G*B table-row decodes issued per-batch (pipelined
    issue/finalize) vs one ``_decode_rows_grouped`` dispatch;
@@ -27,11 +25,11 @@ def build(tiny, mesh_shape=None):
     import jax
     import jax.numpy as jnp
 
-    from lrcn_tpu.config import LRCNConfig
-    from lrcn_tpu.core.vocab import Vocab
-    from lrcn_tpu.data.feature_store import FeatureStore
-    from lrcn_tpu.models import lrcn
-    from lrcn_tpu.serve import CaptionService
+    from lrcn_jax.config import LRCNConfig
+    from lrcn_jax.core.vocab import Vocab
+    from lrcn_jax.data.feature_store import FeatureStore
+    from lrcn_jax.models import lrcn
+    from lrcn_jax.serve import CaptionService
 
     if tiny:
         cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
@@ -47,7 +45,7 @@ def build(tiny, mesh_shape=None):
         {k: v / v.sum() for k, v in feats.items()}, normalized=True)
     mesh = None
     if mesh_shape:
-        from lrcn_tpu.parallel.mesh import make_mesh
+        from lrcn_jax.parallel.mesh import make_mesh
         mesh = make_mesh(mesh_shape)
     svc = CaptionService(cfg, params, vocab, store=store, beam_width=3,
                          max_words=20,

@@ -1,11 +1,9 @@
 """TRUE serving capacity: C++ closed-loop load generator vs the server.
 
-The round-3 HTTP numbers (benchmarks/bench_serve_http.py) were made
-with Python client processes, which bottleneck on their own GIL —
-1,621-1,770 captions/s for the native front-end was a lower bound with
-unknown slack.  This driver uses ``native/loadgen.cpp`` (one C++
-thread per connection, keep-alive, no interpreter anywhere in the
-client) and sweeps concurrency until the throughput knee, so the
+Python client processes bottleneck on their own GIL, so HTTP numbers
+made with them are lower bounds with unknown slack.  This benchmark uses
+``native/loadgen.cpp`` (one C++ thread per connection, keep-alive, no
+interpreter anywhere in the client) and sweeps concurrency until the throughput knee, so the
 committed number is the SERVER's saturation point.
 
 For each concurrency point it records the loadgen's JSON (throughput,
@@ -33,11 +31,11 @@ def build_service(tiny=False, burst_groups=None, mesh_n=None,
                   with_encoder=False, encode_batch=8):
     import jax
 
-    from lrcn_tpu.config import LRCNConfig
-    from lrcn_tpu.core.vocab import Vocab
-    from lrcn_tpu.data.feature_store import FeatureStore
-    from lrcn_tpu.models import lrcn
-    from lrcn_tpu.serve import CaptionService
+    from lrcn_jax.config import LRCNConfig
+    from lrcn_jax.core.vocab import Vocab
+    from lrcn_jax.data.feature_store import FeatureStore
+    from lrcn_jax.models import lrcn
+    from lrcn_jax.serve import CaptionService
 
     if tiny:      # CPU smoke-test geometry, not a benchmark config
         cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
@@ -54,12 +52,12 @@ def build_service(tiny=False, burst_groups=None, mesh_n=None,
     import jax.numpy as jnp
     mesh = None
     if mesh_n:
-        from lrcn_tpu.parallel import make_mesh
+        from lrcn_jax.parallel import make_mesh
         mesh = make_mesh((mesh_n, 1))
     vgg_params = None
     if with_encoder:   # the image endpoint: full VGG-16 geometry unless
         #                tiny (random weights — identical FLOPs/bytes)
-        from lrcn_tpu.models import vgg as vgg_mod
+        from lrcn_jax.models import vgg as vgg_mod
         vgg_params = vgg_mod.init_vgg_params(
             jax.random.PRNGKey(1),
             **({"width_multiplier": 0.05, "fc_dim": cfg.cnn_feature_dim}
@@ -262,7 +260,7 @@ def main():
     rate_list = ([int(r) for r in args.rate_sweep.split(",")]
                  if args.rate_sweep else None)
 
-    from lrcn_tpu.native import loadgen_binary
+    from lrcn_jax.native import loadgen_binary
 
     exe = loadgen_binary()
     if exe is None:
@@ -291,7 +289,7 @@ def main():
     all_results = {}
 
     if args.which in ("python", "both"):
-        from lrcn_tpu.serve import make_server
+        from lrcn_jax.serve import make_server
 
         server = make_server(svc, host="127.0.0.1", port=0)
         port = server.server_address[1]
@@ -313,7 +311,7 @@ def main():
         server.server_close()
 
     if args.which in ("native", "both"):
-        from lrcn_tpu.serve.native_http import NativeFrontend
+        from lrcn_jax.serve.native_http import NativeFrontend
 
         n_conns = args.conns if rate_list else max(conns_list)
         fe = NativeFrontend(svc, host="127.0.0.1", port=0,

@@ -162,11 +162,10 @@ def main():
                     help="closed-loop image connections in --mixed")
     ap.add_argument("--p99-bound", type=float, default=4.0,
                     help="max allowed id-p99 multiplier under --mixed. "
-                         "Default 4.0 is calibrated to a 1-CPU-core CI "
-                         "host where the closed-loop image leg's decode "
-                         "CPU inevitably time-slices against the id "
-                         "path (measured 3.32x there); on a multi-core "
-                         "production host the image thread pool has its "
+                         "Default 4.0 allows for a host with one CPU core, "
+                         "where the closed-loop image leg's decode CPU "
+                         "time-slices against the id path; on a "
+                         "multi-core host the image thread pool has its "
                          "own cores and ~2.0 is the right bound")
     args = ap.parse_args()
 
@@ -174,8 +173,8 @@ def main():
     from bench_serve_capacity import (build_service, finish_loadgen,
                                       run_loadgen, start_loadgen)
 
-    from lrcn_tpu.native import loadgen_binary
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.native import loadgen_binary
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     exe = loadgen_binary()
     if exe is None:

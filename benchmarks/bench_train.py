@@ -1,7 +1,7 @@
 import jax, jax.numpy as jnp, numpy as np, time, functools, optax
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.models import lrcn
-from lrcn_tpu.train.trainer import make_optimizer
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.models import lrcn
+from lrcn_jax.train.trainer import make_optimizer
 
 cfg = LRCNConfig(hidden=(1000,1000), embed=1000, vocab_size=8800, dropout=0.4)
 params = jax.device_put(lrcn.init_params(jax.random.PRNGKey(0), cfg))

@@ -1,6 +1,7 @@
 """VGG-16 fc7 throughput: per-batch dispatch vs one scanned dispatch.
 
-Run on a real TPU chip.  Syncs via scalar host transfer (see README.md).
+Run on the GPU; each timed region ends when its scalar result reaches
+the host.
 """
 import time
 
@@ -8,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lrcn_tpu.models import vgg
+from lrcn_jax.models import vgg
 
 params = jax.device_put(vgg.init_vgg_params(jax.random.PRNGKey(0)))
 rng = np.random.default_rng(0)
@@ -25,7 +26,7 @@ for B in (64, 128, 256):
     dt = (time.perf_counter() - t0) / n
     print(f"per-batch B={B}: {dt*1e3:.1f} ms/batch -> {B/dt:.0f} images/s")
 
-# one scanned dispatch of K batches (the >=5k img/s configuration)
+# one scanned dispatch of K batches
 K, B = 8, 256
 stacked = jnp.asarray(rng.standard_normal((K, B, 224, 224, 3)),
                       jnp.bfloat16)

@@ -18,11 +18,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.core.vocab import Vocab
-from lrcn_tpu.data.feature_store import FeatureStore
-from lrcn_tpu.models import lrcn
-from lrcn_tpu.serve import CaptionService, make_server
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.core.vocab import Vocab
+from lrcn_jax.data.feature_store import FeatureStore
+from lrcn_jax.models import lrcn
+from lrcn_jax.serve import CaptionService, make_server
 
 
 def main():

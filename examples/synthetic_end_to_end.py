@@ -24,10 +24,10 @@ import tempfile
 
 import numpy as np
 
-from lrcn_tpu import cli
-from lrcn_tpu.data.feature_store import FeatureStore, l1_normalize
-from lrcn_tpu.evaluation.bleu import multi_bleu_files
-from lrcn_tpu.evaluation.references import build_coco_references
+from lrcn_jax import cli
+from lrcn_jax.data.feature_store import FeatureStore, l1_normalize
+from lrcn_jax.evaluation.bleu import multi_bleu_files
+from lrcn_jax.evaluation.references import build_coco_references
 
 WORDS = ("a man rides his bike dog runs on grass two children play in the "
          "park near water under trees").split()

@@ -11,7 +11,7 @@ import subprocess
 
 import pytest
 
-from lrcn_tpu.evaluation import multi_bleu, multi_bleu_files
+from lrcn_jax.evaluation import multi_bleu, multi_bleu_files
 
 PERL = shutil.which("perl")
 

@@ -12,8 +12,8 @@ import sys
 import numpy as np
 import pytest
 
-from lrcn_tpu import cli
-from lrcn_tpu.data.feature_store import FeatureStore, l1_normalize
+from lrcn_jax import cli
+from lrcn_jax.data.feature_store import FeatureStore, l1_normalize
 
 WORDS = ["a", "man", "rides", "his", "bike", "dog", "runs", "on", "grass",
          "two", "children", "play", "in", "the", "park", "near", "water"]
@@ -111,7 +111,7 @@ def test_train_resume_from_checkpoint(synthetic):
     base2 = [a if a != "1" else "2" for a in base]
     assert cli.main(base2 + ["--loadfile", ckpt,
                              "--savefile", resume2]) == 0
-    from lrcn_tpu.train.checkpoint import load_checkpoint
+    from lrcn_jax.train.checkpoint import load_checkpoint
     assert load_checkpoint(resume2)["epoch"] == 2
     # re-running the ORIGINAL command is a no-op, not an overshoot
     assert cli.main(base + ["--loadfile", ckpt,
@@ -157,7 +157,7 @@ def test_console_script_entrypoint():
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
-    out = subprocess.run([sys.executable, "-m", "lrcn_tpu.cli", "--help"],
+    out = subprocess.run([sys.executable, "-m", "lrcn_jax.cli", "--help"],
                          capture_output=True, text=True, cwd="/tmp", env=env)
     assert out.returncode == 0
     assert "train" in out.stdout and "extract-features" in out.stdout
@@ -168,7 +168,7 @@ def synthetic_vgg_mat(path, rng, width=1.0, fc_dim=4096):
     scales the conv channel counts (tiny widths keep CPU tests fast)."""
     from scipy.io import savemat
 
-    from lrcn_tpu.models import vgg as vgg_mod
+    from lrcn_jax.models import vgg as vgg_mod
 
     def wb(w, b):
         # explicit object array: np.array([w, b], dtype=object) tries to
@@ -220,10 +220,10 @@ def test_caption_single_image(tmp_path, synthetic):
     # a checkpoint whose decoder takes 4096-dim features
     import jax
 
-    from lrcn_tpu.config import LRCNConfig
-    from lrcn_tpu.core.vocab import Vocab
-    from lrcn_tpu.models import lrcn as lrcn_model
-    from lrcn_tpu.train.checkpoint import save_checkpoint
+    from lrcn_jax.config import LRCNConfig
+    from lrcn_jax.core.vocab import Vocab
+    from lrcn_jax.models import lrcn as lrcn_model
+    from lrcn_jax.train.checkpoint import save_checkpoint
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, cnn_feature_dim=4096,
                      vocab_size=0, compute_dtype="float32")
@@ -268,7 +268,7 @@ def test_train_joint_cli(tmp_path, monkeypatch):
 
     from PIL import Image
 
-    from lrcn_tpu.models import vgg as vgg_mod
+    from lrcn_jax.models import vgg as vgg_mod
 
     monkeypatch.setattr(
         vgg_mod, "init_vgg_params",
@@ -335,7 +335,7 @@ def test_joint_eval_chain(tmp_path, monkeypatch, capsys):
 
     from PIL import Image
 
-    from lrcn_tpu.models import vgg as vgg_mod
+    from lrcn_jax.models import vgg as vgg_mod
 
     monkeypatch.setattr(
         vgg_mod, "init_vgg_params",
@@ -387,10 +387,10 @@ def test_joint_eval_chain(tmp_path, monkeypatch, capsys):
     # decoder-only checkpoints are refused with guidance
     import jax
 
-    from lrcn_tpu.config import LRCNConfig
-    from lrcn_tpu.core.vocab import Vocab
-    from lrcn_tpu.models import lrcn as lrcn_model
-    from lrcn_tpu.train.checkpoint import save_checkpoint
+    from lrcn_jax.config import LRCNConfig
+    from lrcn_jax.core.vocab import Vocab
+    from lrcn_jax.models import lrcn as lrcn_model
+    from lrcn_jax.train.checkpoint import save_checkpoint
 
     dcfg = LRCNConfig(hidden=(16, 16), embed=12, cnn_feature_dim=24,
                       vocab_size=0, compute_dtype="float32")
@@ -435,10 +435,10 @@ def test_joint_warm_start_from_decoder_checkpoint(tmp_path):
     import jax
     from PIL import Image
 
-    from lrcn_tpu.config import LRCNConfig
-    from lrcn_tpu.core.vocab import Vocab
-    from lrcn_tpu.models import lrcn as lrcn_model
-    from lrcn_tpu.train.checkpoint import save_checkpoint
+    from lrcn_jax.config import LRCNConfig
+    from lrcn_jax.core.vocab import Vocab
+    from lrcn_jax.models import lrcn as lrcn_model
+    from lrcn_jax.train.checkpoint import save_checkpoint
 
     rng = np.random.default_rng(12)
     mat_path = str(tmp_path / "vgg_tiny.mat")
@@ -504,7 +504,7 @@ def test_joint_warm_start_from_decoder_checkpoint(tmp_path):
 
 
 def test_decode_geometry_auto():
-    """Auto geometry ships the measured flagship dispatch shape to users
+    """Auto geometry ships the flagship dispatch shape to users
     (the reference protocol's 1000 images -> 256x4 in one..few
     dispatches) while small runs stay small; explicit flags win."""
     assert cli.decode_geometry(1000, None, None) == (256, 4)
@@ -533,7 +533,7 @@ def test_train_resume_honors_explicit_flags(synthetic, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "overrides checkpoint lr=" in out
     assert "overrides checkpoint batch_size=" in out
-    from lrcn_tpu.train.checkpoint import load_checkpoint
+    from lrcn_jax.train.checkpoint import load_checkpoint
     cfg = load_checkpoint(str(tmp_path / "ckpt_override"))["cfg"]
     assert cfg.lr == 5e-4 and cfg.batch_size == 8
 
@@ -550,8 +550,8 @@ def test_quality_gate_bleu_overfit(tmp_path):
     (eval/eval.jl:38 + multi-bleu.perl) on a trained model instead of
     frozen artifacts.
     """
-    from lrcn_tpu.evaluation.bleu import multi_bleu_files
-    from lrcn_tpu.evaluation.references import build_coco_references
+    from lrcn_jax.evaluation.bleu import multi_bleu_files
+    from lrcn_jax.evaluation.references import build_coco_references
 
     rng = np.random.default_rng(17)
     n_classes = 12
@@ -608,9 +608,9 @@ def _tiny_checkpoint(path, vocab, feature_dim):
     """An untrained decoder checkpoint (generation needs no training)."""
     import jax
 
-    from lrcn_tpu.config import LRCNConfig
-    from lrcn_tpu.models import lrcn as lrcn_model
-    from lrcn_tpu.train.checkpoint import save_checkpoint
+    from lrcn_jax.config import LRCNConfig
+    from lrcn_jax.models import lrcn as lrcn_model
+    from lrcn_jax.train.checkpoint import save_checkpoint
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, cnn_feature_dim=feature_dim,
                      vocab_size=len(vocab), compute_dtype="float32")
@@ -624,7 +624,7 @@ def test_generate_samples_flickr_held_out_split(synthetic, tmp_path,
     against a full-corpus feature store (lrcn.jl:132-150); default output
     names are the reference's candidates_flickr/candidate_ids_flickr
     (lrcn.jl:133-134)."""
-    from lrcn_tpu.core.tokenizer import flickr_split, tokenize
+    from lrcn_jax.core.tokenizer import flickr_split, tokenize
 
     vocab, _ = tokenize([synthetic["token"]])
     ckpt = str(tmp_path / "ckpt")
@@ -678,7 +678,7 @@ def test_generate_samples_coco_val_split(tmp_path, monkeypatch):
     store_dir = str(tmp_path / "feats")
     FeatureStore.from_dict(feats, normalized=True).save(store_dir)
 
-    from lrcn_tpu.core.tokenizer import tokenize
+    from lrcn_jax.core.tokenizer import tokenize
     vocab, _ = tokenize([train_json, val_json])
     ckpt = str(tmp_path / "ckpt")
     _tiny_checkpoint(ckpt, vocab, 32)
@@ -806,8 +806,8 @@ def _train_generate_bleu(tmp_path, tag, train_json, val_json, train_store,
                          val_store, n_val, extra_train_flags=(),
                          epochs=30):
     """train -> generate (held-out protocol) -> refs -> BLEU result."""
-    from lrcn_tpu.evaluation.bleu import multi_bleu_files
-    from lrcn_tpu.evaluation.references import build_coco_references
+    from lrcn_jax.evaluation.bleu import multi_bleu_files
+    from lrcn_jax.evaluation.references import build_coco_references
 
     ckpt = str(tmp_path / f"ckpt_{tag}")
     assert cli.main([
@@ -855,8 +855,8 @@ def test_batching_divergence_gate(tmp_path):
     n_val = len(corpus[4])
 
     # guard: the two batchings must actually differ on this corpus
-    from lrcn_tpu.core.tokenizer import tokenize
-    from lrcn_tpu.data.batcher import bucket_batches, equal_length_batches
+    from lrcn_jax.core.tokenizer import tokenize
+    from lrcn_jax.data.batcher import bucket_batches, equal_length_batches
     vocab, cls = tokenize([corpus[0], corpus[1]])
     n_bucket = sum(len(b.image_ids)
                    for b in bucket_batches(cls[0], vocab, 16))
@@ -883,9 +883,9 @@ def test_flickr_token_flow_quality_gate(tmp_path, monkeypatch):
     end-to-end: token split -> train -> held-out-test generate ->
     build_flickr_references -> BLEU (every prior e2e gate was COCO-json
     only).  Split sizes are scaled down via the tokenizer constants."""
-    from lrcn_tpu.core import tokenizer as tok
-    from lrcn_tpu.evaluation.bleu import multi_bleu_files
-    from lrcn_tpu.evaluation.references import build_flickr_references
+    from lrcn_jax.core import tokenizer as tok
+    from lrcn_jax.evaluation.bleu import multi_bleu_files
+    from lrcn_jax.evaluation.references import build_flickr_references
 
     monkeypatch.setattr(tok, "VAL_SIZE", 8)
     monkeypatch.setattr(tok, "TEST_SIZE", 8)
@@ -1003,7 +1003,7 @@ def test_train_on_coco_json_pair(tmp_path):
         "--hidden", "16", "16", "--embed", "12", "--seed", "5",
         "--dropout", "0.0", "--compute-dtype", "float32"])
     assert rc == 0
-    from lrcn_tpu.core.vocab import UNK_ID, Vocab
+    from lrcn_jax.core.vocab import UNK_ID, Vocab
     vocab = Vocab.load(os.path.join(str(tmp_path / "ckpt"), "vocab.json"))
     assert vocab.id("zyzzyva") != UNK_ID, \
         "val json did not feed the vocabulary (tokenizer.jl:23 parity)"

@@ -5,12 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from lrcn_tpu.core.tokenizer import Caption
-from lrcn_tpu.core.vocab import Vocab
-from lrcn_tpu.data import (
+from lrcn_jax.core.tokenizer import Caption
+from lrcn_jax.core.vocab import Vocab
+from lrcn_jax.data import (
     FeatureStore, bucket_batches, equal_length_batches, prefetch_to_device,
 )
-from lrcn_tpu.data.feature_store import l1_normalize
+from lrcn_jax.data.feature_store import l1_normalize
 
 
 @pytest.fixture
@@ -194,7 +194,7 @@ def test_download_fetch_extract_file_url(tmp_path, monkeypatch, capsys):
     import tarfile
     import zipfile
 
-    from lrcn_tpu.data import download
+    from lrcn_jax.data import download
 
     src = tmp_path / "src"
     src.mkdir()

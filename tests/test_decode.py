@@ -6,10 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.core.vocab import BOS_ID, EOS_ID, Vocab
-from lrcn_tpu.decode import beam_search, greedy_search, caption_to_line
-from lrcn_tpu.models import lrcn
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.core.vocab import BOS_ID, EOS_ID, Vocab
+from lrcn_jax.decode import beam_search, greedy_search, caption_to_line
+from lrcn_jax.decode.reference import reference_beam_search
+from lrcn_jax.models import lrcn
 
 
 def small_cfg(vocab_size=25):
@@ -24,37 +25,6 @@ def setup():
     rng = np.random.default_rng(0)
     feats = rng.normal(size=(5, cfg.cnn_feature_dim)).astype(np.float32)
     return cfg, params, feats
-
-
-def reference_beam_search(params, cfg, feat, beam_width, nword):
-    """Host-looped beam search with the reference's exact semantics
-    (lrcn.jl:644-678): linear-space probability products, first step
-    expands only hypothesis 0, finished hypotheses keep expanding, stop
-    when the best hypothesis ends in EOS or length exceeds nword."""
-    cnn_proj = np.asarray(
-        lrcn.cnn_projection(params, jnp.asarray(feat[None]), jnp.float32))
-    state0 = lrcn.init_state(cfg, 1)
-    hyps = [([BOS_ID], 1.0, state0) for _ in range(beam_width)]
-
-    current = 1
-    while True:
-        candidates = []
-        for i, (words, prob, state) in enumerate(hyps):
-            new_state, logits = lrcn.decode_step(
-                params, state, jnp.asarray([words[-1]]), jnp.asarray(cnn_proj),
-                jnp.float32)
-            p = np.asarray(jax.nn.softmax(logits.astype(jnp.float32)))[0]
-            order = np.argsort(-p, kind="stable")[:beam_width]
-            for j in order:
-                candidates.append((words + [int(j)], prob * float(p[j]),
-                                   new_state))
-            if current == 1:
-                break  # first step: only hypothesis 0 expands
-        candidates.sort(key=lambda t: -t[1])
-        hyps = candidates[:beam_width]
-        if hyps[0][0][-1] == EOS_ID or current > nword:
-            return hyps[0]
-        current += 1
 
 
 def test_beam_matches_reference_semantics(setup):
@@ -134,8 +104,8 @@ class TestSampling:
     """Temperature sampling + best-of-N (decode/sample.py)."""
 
     def _setup(self):
-        from lrcn_tpu.config import LRCNConfig
-        from lrcn_tpu.models import lrcn as lrcn_model
+        from lrcn_jax.config import LRCNConfig
+        from lrcn_jax.models import lrcn as lrcn_model
         cfg = LRCNConfig(hidden=(32, 32), embed=24, cnn_feature_dim=40,
                          vocab_size=60, compute_dtype="float32")
         params = lrcn_model.init_params(jax.random.PRNGKey(0), cfg)
@@ -143,7 +113,7 @@ class TestSampling:
         return params, feats
 
     def test_sample_shapes_and_determinism(self):
-        from lrcn_tpu.decode.sample import sample_search
+        from lrcn_jax.decode.sample import sample_search
         params, feats = self._setup()
         t1, s1 = sample_search(params, feats, jax.random.PRNGKey(7),
                                temperature=1.5, max_words=10,
@@ -161,9 +131,9 @@ class TestSampling:
         assert not np.array_equal(np.asarray(t1), np.asarray(t3))
 
     def test_sample_scores_are_true_logprobs(self):
-        from lrcn_tpu.decode.sample import sample_search
-        from lrcn_tpu.core.vocab import EOS_ID
-        from lrcn_tpu.models import lrcn as lrcn_model
+        from lrcn_jax.decode.sample import sample_search
+        from lrcn_jax.core.vocab import EOS_ID
+        from lrcn_jax.models import lrcn as lrcn_model
         params, feats = self._setup()
         tokens, scores = sample_search(params, feats, jax.random.PRNGKey(3),
                                        temperature=2.0, max_words=8,
@@ -176,7 +146,7 @@ class TestSampling:
             if int(t) == EOS_ID:
                 break
         state = lrcn_model.init_state(
-            __import__("lrcn_tpu.config", fromlist=["LRCNConfig"]
+            __import__("lrcn_jax.config", fromlist=["LRCNConfig"]
                        ).LRCNConfig(hidden=(32, 32), embed=24,
                                     cnn_feature_dim=40, vocab_size=60), 1)
         cnn = lrcn_model.cnn_projection(params, feats[:1], jnp.float32)
@@ -192,7 +162,7 @@ class TestSampling:
                                    atol=1e-4)
 
     def test_best_of_n_beats_single_sample(self):
-        from lrcn_tpu.decode.sample import best_of_n_search, sample_search
+        from lrcn_jax.decode.sample import best_of_n_search, sample_search
         params, feats = self._setup()
         tb, sb = best_of_n_search(params, feats, jax.random.PRNGKey(5),
                                   n_samples=8, temperature=2.0,
@@ -210,8 +180,8 @@ def test_generate_captions_scanned_paths_match_per_batch(setup):
     """generate_captions' scanned group dispatch (beam and greedy) yields
     the same captions as direct per-batch searches, across enough batches
     to exercise the bounded in-flight drain."""
-    from lrcn_tpu.data.feature_store import FeatureStore
-    from lrcn_tpu.decode.writer import generate_captions
+    from lrcn_jax.data.feature_store import FeatureStore
+    from lrcn_jax.decode.writer import generate_captions
 
     cfg, params, _ = setup
     vocab = Vocab([f"w{i}" for i in range(cfg.vocab_size - 3)])
@@ -251,7 +221,7 @@ def test_detokenize_batch_matches_caption_to_line():
     """The vectorized detokenizer is output-identical to the per-row
     reference implementation, including EOS-first (empty caption),
     no-EOS (runs to the cap), and BOS-only rows."""
-    from lrcn_tpu.decode.writer import detokenize_batch
+    from lrcn_jax.decode.writer import detokenize_batch
 
     vocab = Vocab([f"w{i}" for i in range(30)])
     rng = np.random.default_rng(0)
@@ -269,10 +239,9 @@ def test_generate_captions_bf16_upload_paths_match(setup):
     host-gathered batches) are bit-identical to shipping f32 — the
     search's first use of features is a cast to compute_dtype
     (ops/lstm.py matmul), so the upload dtype cannot change tokens.
-    The bf16 upload halves the bytes of the e2e bottleneck
-    (BENCH_DETAIL.md bench_generate)."""
-    from lrcn_tpu.data.feature_store import FeatureStore
-    from lrcn_tpu.decode.writer import generate_captions
+    The bf16 upload halves the bytes shipped."""
+    from lrcn_jax.data.feature_store import FeatureStore
+    from lrcn_jax.decode.writer import generate_captions
 
     cfg, params, _ = setup
     vocab = Vocab([f"w{i}" for i in range(cfg.vocab_size - 3)])

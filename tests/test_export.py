@@ -15,16 +15,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.core.vocab import Vocab
-from lrcn_tpu.decode.beam import beam_search, greedy_search
-from lrcn_tpu.decode.sample import best_of_n_search
-from lrcn_tpu.export import (
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.core.vocab import Vocab
+from lrcn_jax.decode.beam import beam_search, greedy_search
+from lrcn_jax.decode.sample import best_of_n_search
+from lrcn_jax.export import (
+    DEFAULT_PLATFORMS,
+    export_decoder,
     export_image_pipeline,
     load_exported,
     save_exported,
 )
-from lrcn_tpu.models import lrcn
+from lrcn_jax.models import lrcn
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +50,7 @@ def test_export_round_trip_matches_live_decode(setup, tmp_path):
                              temperature=1.5)
     assert sorted(manifest["variants"]) == ["beam", "greedy", "sample"]
     model = load_exported(out)
-    assert model.manifest["platforms"] == ["cpu", "tpu"]
+    assert model.manifest["platforms"] == ["cpu", "cuda"]
 
     rng = np.random.default_rng(0)
     for b in (5, 7):    # two batch sizes, same artifact
@@ -78,7 +80,7 @@ def test_export_round_trip_matches_live_decode(setup, tmp_path):
 
 def test_exported_captions_detokenize_with_bundled_vocab(setup, tmp_path):
     _cfg, params, vocab = setup
-    from lrcn_tpu.decode.writer import detokenize_batch
+    from lrcn_jax.decode.writer import detokenize_batch
 
     out = str(tmp_path / "export")
     save_exported(out, params, vocab, variants=("beam",), max_words=8)
@@ -94,7 +96,7 @@ def test_export_image_pipeline_pixels_to_tokens(setup):
     """The full-pipeline artifact (uint8 pixels -> tokens) must match
     preprocess -> vgg -> l1 -> beam run as separate live steps."""
     _cfg, params, _vocab = setup
-    from lrcn_tpu.models.vgg import init_vgg_params, l1_normalize, vgg16_fc7
+    from lrcn_jax.models.vgg import init_vgg_params, l1_normalize, vgg16_fc7
 
     vgg = init_vgg_params(jax.random.PRNGKey(5), width_multiplier=0.0,
                           fc_dim=10)
@@ -118,8 +120,8 @@ def test_cli_export_and_reload(setup, tmp_path):
     the checkpoint's live decode; decoder-only checkpoints refuse the
     image variant with a clear error."""
     cfg, params, vocab = setup
-    from lrcn_tpu.cli import main
-    from lrcn_tpu.train.checkpoint import save_checkpoint
+    from lrcn_jax.cli import main
+    from lrcn_jax.train.checkpoint import save_checkpoint
 
     ckpt = str(tmp_path / "ckpt")
     save_checkpoint(ckpt, params, vocab, cfg)
@@ -143,6 +145,17 @@ def test_cli_export_and_reload(setup, tmp_path):
     with pytest.raises(SystemExit, match="image variant needs an encoder"):
         main(["export", "--loadfile", ckpt, "--out",
               str(tmp_path / "frozen2"), "--variants", "image"])
+
+
+def test_export_lowers_for_cuda(setup, tmp_path):
+    """A GPU lowering is produced without a GPU present, and the CLI's
+    default artifact carries it next to the CPU one."""
+    _cfg, params, vocab = setup
+    exported = export_decoder(params, beam_width=2, max_words=5,
+                              platforms=("cuda",))
+    assert exported.platforms == ("cuda",)
+    assert "stablehlo" in exported.mlir_module()
+    assert DEFAULT_PLATFORMS == ("cpu", "cuda")
 
 
 def test_export_rejects_unknown_variant(setup, tmp_path):

@@ -1,4 +1,4 @@
-"""Knet/JLD checkpoint import (lrcn_tpu/data/jld.py).
+"""Knet/JLD checkpoint import (lrcn_jax/data/jld.py).
 
 The reference checkpoints ``save(file, "model", model, "vocab", vocab)``
 (lrcn.jl:185,230).  No Julia exists in this sandbox, so these tests
@@ -15,9 +15,9 @@ h5py = pytest.importorskip("h5py")
 
 import jax  # noqa: E402
 
-from lrcn_tpu.config import LRCNConfig  # noqa: E402
-from lrcn_tpu.core.vocab import Vocab  # noqa: E402
-from lrcn_tpu.data.jld import (  # noqa: E402
+from lrcn_jax.config import LRCNConfig  # noqa: E402
+from lrcn_jax.core.vocab import Vocab  # noqa: E402
+from lrcn_jax.data.jld import (  # noqa: E402
     export_knet_checkpoint,
     import_knet_checkpoint,
     knet_params_from_model,
@@ -25,13 +25,13 @@ from lrcn_tpu.data.jld import (  # noqa: E402
     vocab_from_jld,
     write_jld,
 )
-from lrcn_tpu.models import lrcn as lrcn_model  # noqa: E402
-from lrcn_tpu.train.checkpoint import load_checkpoint  # noqa: E402
+from lrcn_jax.models import lrcn as lrcn_model  # noqa: E402
+from lrcn_jax.train.checkpoint import load_checkpoint  # noqa: E402
 
 
 # the writer lives in the module now (export-jld uses it);
 # params_to_julia_model is the module's julia_model_from_params
-from lrcn_tpu.data.jld import julia_model_from_params \
+from lrcn_jax.data.jld import julia_model_from_params \
     as params_to_julia_model  # noqa: E402
 
 
@@ -83,7 +83,7 @@ def test_imported_checkpoint_decodes_identically(tmp_path, small_model):
     """The imported params drive the decoder bit-identically to the
     originals (i.e. the orientation/bias-flatten transforms are right
     end to end, not just shape-compatible)."""
-    from lrcn_tpu.decode.beam import beam_search
+    from lrcn_jax.decode.beam import beam_search
 
     params, vocab, _ = small_model
     jld = str(tmp_path / "model.jld")
@@ -104,7 +104,7 @@ def test_imported_checkpoint_decodes_identically(tmp_path, small_model):
 
 
 def test_cli_import_jld(tmp_path, small_model, capsys):
-    from lrcn_tpu import cli
+    from lrcn_jax import cli
 
     params, vocab, _ = small_model
     jld = str(tmp_path / "model.jld")
@@ -172,7 +172,7 @@ def test_import_rejects_wrong_files(tmp_path, small_model):
 def test_export_import_roundtrip_exact(tmp_path, small_model):
     """export-jld -> import-jld recovers bit-equal params and the
     identical vocab (the reverse-migration contract)."""
-    from lrcn_tpu.train.checkpoint import save_checkpoint
+    from lrcn_jax.train.checkpoint import save_checkpoint
 
     params, vocab, cfg = small_model
     src = str(tmp_path / "native_ckpt")
@@ -194,7 +194,7 @@ def test_export_import_roundtrip_exact(tmp_path, small_model):
 def test_export_jld_joint_checkpoint_exports_decoder(tmp_path, small_model):
     """A --joint checkpoint (params = {cnn, decoder}) exports its
     decoder — the reference's model.jld is decoder-only (lrcn.jl:185)."""
-    from lrcn_tpu.train.checkpoint import save_checkpoint
+    from lrcn_jax.train.checkpoint import save_checkpoint
 
     params, vocab, cfg = small_model
     joint = {"cnn": {"fc7": {"w": np.ones((3, 12), np.float32),
@@ -213,8 +213,8 @@ def test_export_jld_joint_checkpoint_exports_decoder(tmp_path, small_model):
 
 
 def test_cli_export_jld(tmp_path, small_model, capsys):
-    from lrcn_tpu import cli
-    from lrcn_tpu.train.checkpoint import save_checkpoint
+    from lrcn_jax import cli
+    from lrcn_jax.train.checkpoint import save_checkpoint
 
     params, vocab, cfg = small_model
     src = str(tmp_path / "ckpt")
@@ -233,7 +233,7 @@ def test_written_jld_has_jldjl_format_pieces(tmp_path, small_model):
     /_types compound with the `julia type` attr (JLD.jl resolves
     compound types from the committed datatype), the `julia type` attr
     on the ref-array dataset, and /_creator bookkeeping."""
-    from lrcn_tpu.data.jld import JLD_MAGIC
+    from lrcn_jax.data.jld import JLD_MAGIC
 
     params, vocab, _ = small_model
     jld = str(tmp_path / "m.jld")

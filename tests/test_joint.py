@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.models import vgg
-from lrcn_tpu.models.joint import (
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.models import vgg
+from lrcn_jax.models.joint import (
     JointParams,
     JointTrainStep,
     joint_loss,
     make_joint_optimizer,
 )
-from lrcn_tpu.parallel import make_mesh
+from lrcn_jax.parallel import make_mesh
 
 
 def tiny_setup(mesh=None, freeze_cnn=False):
@@ -148,21 +148,21 @@ def test_joint_mid_epoch_resume_exact(tmp_path, monkeypatch,
 
     from PIL import Image
 
-    from lrcn_tpu.core.tokenizer import Caption
-    from lrcn_tpu.core.vocab import Vocab
-    from lrcn_tpu.data.batcher import bucket_batches
-    from lrcn_tpu.train import joint as joint_mod
-    from lrcn_tpu.train.checkpoint import (
+    from lrcn_jax.core.tokenizer import Caption
+    from lrcn_jax.core.vocab import Vocab
+    from lrcn_jax.data.batcher import bucket_batches
+    from lrcn_jax.train import joint as joint_mod
+    from lrcn_jax.train.checkpoint import (
         load_checkpoint,
         restore_opt_state,
         save_checkpoint,
     )
-    from lrcn_tpu.train.joint import (
+    from lrcn_jax.train.joint import (
         JointTrainer,
         identity_average_image,
         load_joint_params,
     )
-    from lrcn_tpu.train.metrics import MetricsLogger
+    from lrcn_jax.train.metrics import MetricsLogger
 
     monkeypatch.setattr(
         vgg, "init_vgg_params",

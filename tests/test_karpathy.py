@@ -6,10 +6,10 @@ import zipfile
 
 import numpy as np
 
-from lrcn_tpu import cli
-from lrcn_tpu.data.download import extract, fetch
-from lrcn_tpu.data.feature_store import FeatureStore
-from lrcn_tpu.data.karpathy import import_karpathy
+from lrcn_jax import cli
+from lrcn_jax.data.download import extract, fetch
+from lrcn_jax.data.feature_store import FeatureStore
+from lrcn_jax.data.karpathy import import_karpathy
 
 
 def make_karpathy_files(tmp_path, n=5, dim=32):

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.core.vocab import BOS_ID, EOS_ID
-from lrcn_tpu.models import lrcn
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.core.vocab import BOS_ID, EOS_ID
+from lrcn_jax.models import lrcn
 
 
 def small_cfg(**kw):

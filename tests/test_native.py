@@ -5,8 +5,8 @@ import subprocess
 
 import pytest
 
-from lrcn_tpu.evaluation import bleu as bleu_mod
-from lrcn_tpu.native import bleu_library, native_enabled
+from lrcn_jax.evaluation import bleu as bleu_mod
+from lrcn_jax.native import bleu_library, native_enabled
 
 
 def test_native_library_builds_and_loads():
@@ -82,12 +82,12 @@ class TestImageLoader:
         return paths
 
     def test_loader_builds(self):
-        from lrcn_tpu.native import imageloader_library
+        from lrcn_jax.native import imageloader_library
         assert imageloader_library() is not None
 
     def test_loader_close_to_pil(self, tmp_path):
         import numpy as np
-        from lrcn_tpu.data.images import (
+        from lrcn_jax.data.images import (
             decode_image, load_batch_native, resize_crop)
         paths = self._make_jpegs(tmp_path)
         out, ok = load_batch_native(paths)
@@ -112,7 +112,7 @@ class TestImageLoader:
         import numpy as np
         from PIL import Image
 
-        from lrcn_tpu.data.images import (
+        from lrcn_jax.data.images import (
             decode_image,
             load_batch_native,
             resize_crop,
@@ -131,7 +131,7 @@ class TestImageLoader:
         assert diff < 2.0, diff   # sub-pixel resampler noise only
 
     def test_loader_flags_bad_files(self, tmp_path):
-        from lrcn_tpu.data.images import load_batch_native
+        from lrcn_jax.data.images import load_batch_native
         good = self._make_jpegs(tmp_path, 1)[0]
         bad = str(tmp_path / "broken.jpg")
         with open(bad, "wb") as f:
@@ -143,8 +143,8 @@ class TestImageLoader:
     def test_extract_features_uses_native_path(self, tmp_path):
         import jax
         import numpy as np
-        from lrcn_tpu.data.images import extract_features
-        from lrcn_tpu.models import vgg
+        from lrcn_jax.data.images import extract_features
+        from lrcn_jax.models import vgg
         paths = {100 + i: p
                  for i, p in enumerate(self._make_jpegs(tmp_path, 3))}
         params = vgg.init_vgg_params(jax.random.PRNGKey(0),

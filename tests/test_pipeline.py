@@ -13,17 +13,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.models import lrcn
-from lrcn_tpu.parallel import PipelinedTrainStep, make_mesh
-from lrcn_tpu.parallel.pipeline import (
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.models import lrcn
+from lrcn_jax.parallel import PipelinedTrainStep, make_mesh
+from lrcn_jax.parallel.pipeline import (
     from_pipeline_params,
     pipeline_loss_fn,
     pipeline_loss_total_count,
     to_pipeline_params,
     validate_pipeline_config,
 )
-from lrcn_tpu.train.trainer import make_optimizer
+from lrcn_jax.train.trainer import make_optimizer
 
 
 def small_cfg(**kw):
@@ -169,11 +169,11 @@ def test_pipeline_config_validation():
 
 def test_pipeline_trainer_fit_and_checkpoint(tmp_path):
     """Trainer(pipeline=True) end to end: fit, layout-independent ckpt."""
-    from lrcn_tpu.core.tokenizer import Caption
-    from lrcn_tpu.core.vocab import Vocab
-    from lrcn_tpu.data import FeatureStore, bucket_batches
-    from lrcn_tpu.train import Trainer, load_checkpoint
-    from lrcn_tpu.train.metrics import MetricsLogger
+    from lrcn_jax.core.tokenizer import Caption
+    from lrcn_jax.core.vocab import Vocab
+    from lrcn_jax.data import FeatureStore, bucket_batches
+    from lrcn_jax.train import Trainer, load_checkpoint
+    from lrcn_jax.train.metrics import MetricsLogger
 
     words = [f"w{i}" for i in range(29)]
     vocab = Vocab(words)
@@ -195,7 +195,7 @@ def test_pipeline_trainer_fit_and_checkpoint(tmp_path):
     ck = load_checkpoint(str(tmp_path / "ck"))
     # checkpoint is in the STANDARD decoder layout (usable for decoding)
     assert "lstm1" in ck["params"] and "lstm_pp" not in ck["params"]
-    from lrcn_tpu.decode.beam import beam_search
+    from lrcn_jax.decode.beam import beam_search
     feats = jnp.asarray(rng.standard_normal((4, cfg.cnn_feature_dim)),
                         jnp.float32)
     dev_params = jax.tree.map(jnp.asarray, ck["params"])
@@ -207,9 +207,9 @@ def test_pipeline_trainer_fit_and_checkpoint(tmp_path):
 def test_pipeline_ignores_steps_per_dispatch():
     """The pipelined step is its own shard_map program; steps_per_dispatch
     silently degrades to 1 rather than composing incorrectly."""
-    from lrcn_tpu.core.vocab import Vocab
-    from lrcn_tpu.train import Trainer
-    from lrcn_tpu.train.metrics import MetricsLogger
+    from lrcn_jax.core.vocab import Vocab
+    from lrcn_jax.train import Trainer
+    from lrcn_jax.train.metrics import MetricsLogger
 
     cfg = small_cfg()
     vocab = Vocab([f"w{i}" for i in range(cfg.vocab_size - 3)])

@@ -35,11 +35,11 @@ import os
 import numpy as np
 import pytest
 
-from lrcn_tpu import cli
-from lrcn_tpu.core.tokenizer import tokenize_coco_caption
-from lrcn_tpu.data.feature_store import FeatureStore
-from lrcn_tpu.evaluation.bleu import multi_bleu_files
-from lrcn_tpu.evaluation.references import write_reference_files
+from lrcn_jax import cli
+from lrcn_jax.core.tokenizer import tokenize_coco_caption
+from lrcn_jax.data.feature_store import FeatureStore
+from lrcn_jax.evaluation.bleu import multi_bleu_files
+from lrcn_jax.evaluation.references import write_reference_files
 
 N_IMAGES = 64
 MAX_WORDS = 16

@@ -18,7 +18,7 @@ import os
 import numpy as np
 import pytest
 
-from lrcn_tpu import cli
+from lrcn_jax import cli
 from test_vgg import _save_small_mat
 
 WORDS = ["man", "dog", "park", "red", "ball", "runs", "sits", "big",

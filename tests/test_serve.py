@@ -16,13 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.core.vocab import Vocab
-from lrcn_tpu.data.feature_store import FeatureStore
-from lrcn_tpu.decode.beam import beam_search
-from lrcn_tpu.decode.writer import caption_to_line
-from lrcn_tpu.models import lrcn
-from lrcn_tpu.serve import CaptionService, DynamicBatcher, make_server
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.core.vocab import Vocab
+from lrcn_jax.data.feature_store import FeatureStore
+from lrcn_jax.decode.beam import beam_search
+from lrcn_jax.decode.writer import caption_to_line
+from lrcn_jax.models import lrcn
+from lrcn_jax.serve import CaptionService, DynamicBatcher, make_server
 
 import jax
 
@@ -78,7 +78,7 @@ def test_batcher_propagates_errors_and_keeps_serving():
 
 
 def test_batcher_backpressure_sheds_load():
-    from lrcn_tpu.serve.batcher import BatcherOverloaded
+    from lrcn_jax.serve.batcher import BatcherOverloaded
 
     release = threading.Event()
     entered = threading.Event()
@@ -111,7 +111,7 @@ def test_batcher_resolve_tolerates_concurrent_cancel():
     both of its racy outcomes deterministically."""
     from concurrent.futures import Future
 
-    from lrcn_tpu.serve.batcher import _resolve
+    from lrcn_jax.serve.batcher import _resolve
 
     # outcome 1: future already cancelled -> drop silently
     fut = Future()
@@ -313,7 +313,7 @@ def test_service_concurrent_requests_batch(tiny_model):
 
 def test_service_on_mesh_matches_single_device(tiny_model):
     """Batch-sharded serving over the virtual mesh == single-device."""
-    from lrcn_tpu.parallel.mesh import make_mesh
+    from lrcn_jax.parallel.mesh import make_mesh
 
     cfg, vocab, params = tiny_model
     store = _make_store(cfg)
@@ -426,7 +426,7 @@ def test_http_backpressure_and_timeout_statuses():
     """
     from concurrent.futures import TimeoutError as FuturesTimeout
 
-    from lrcn_tpu.serve.batcher import BatcherOverloaded
+    from lrcn_jax.serve.batcher import BatcherOverloaded
 
     class StubService:
         def caption_ids(self, ids):
@@ -458,7 +458,7 @@ def test_http_image_path_with_tiny_vgg(tiny_model, monkeypatch):
     """caption-by-image through the encode stage (width-scaled VGG)."""
     from PIL import Image
 
-    from lrcn_tpu.models import vgg as vgg_mod
+    from lrcn_jax.models import vgg as vgg_mod
 
     cfg, vocab, params = tiny_model
     vgg_params = vgg_mod.init_vgg_params(
@@ -534,7 +534,7 @@ def test_caption_features_normalizes_raw_fc7(tiny_model):
 
 
 def test_http_body_size_cap():
-    from lrcn_tpu.serve.http import MAX_BODY_BYTES
+    from lrcn_jax.serve.http import MAX_BODY_BYTES
 
     class Stub:
         def caption_ids(self, ids):
@@ -696,8 +696,8 @@ def test_make_caption_service_from_cli_args(tiny_model, tmp_path):
     before binding a port): checkpoint + flags -> a working service,
     --mesh N -> an (N, 1) data mesh with token-exact captions, and a
     clear refusal when neither features nor an encoder is given."""
-    from lrcn_tpu import cli
-    from lrcn_tpu.train.checkpoint import save_checkpoint
+    from lrcn_jax import cli
+    from lrcn_jax.train.checkpoint import save_checkpoint
 
     cfg, vocab, params = tiny_model
     store = _make_store(cfg)

@@ -28,12 +28,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.core.vocab import Vocab
-from lrcn_tpu.data.feature_store import FeatureStore
-from lrcn_tpu.models import lrcn
-from lrcn_tpu.native import httpserve_library
-from lrcn_tpu.serve import CaptionService
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.core.vocab import Vocab
+from lrcn_jax.data.feature_store import FeatureStore
+from lrcn_jax.models import lrcn
+from lrcn_jax.native import httpserve_library
+from lrcn_jax.serve import CaptionService
 
 N_REQUESTS = 10000
 N_CLIENTS = 16
@@ -45,7 +45,7 @@ N_CLIENTS_PY = 8
 
 
 def _tiny_service() -> CaptionService:
-    from lrcn_tpu.models import vgg as vgg_mod
+    from lrcn_jax.models import vgg as vgg_mod
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
                      cnn_feature_dim=8)
@@ -74,7 +74,7 @@ def _tiny_service() -> CaptionService:
 def frontend():
     if httpserve_library() is None:
         pytest.skip("native httpserve unavailable")
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     svc = _tiny_service()
     fe = NativeFrontend(svc, host="127.0.0.1", port=0, n_threads=64,
@@ -86,7 +86,7 @@ def frontend():
 
 @pytest.fixture(scope="module")
 def python_server():
-    from lrcn_tpu.serve.http import make_server
+    from lrcn_jax.serve.http import make_server
 
     svc = _tiny_service()
     server = make_server(svc, host="127.0.0.1", port=0)

@@ -15,12 +15,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.core.vocab import Vocab
-from lrcn_tpu.data.feature_store import FeatureStore
-from lrcn_tpu.models import lrcn
-from lrcn_tpu.native import httpserve_library
-from lrcn_tpu.serve import CaptionService
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.core.vocab import Vocab
+from lrcn_jax.data.feature_store import FeatureStore
+from lrcn_jax.models import lrcn
+from lrcn_jax.native import httpserve_library
+from lrcn_jax.serve import CaptionService
 
 pytestmark = pytest.mark.skipif(httpserve_library() is None,
                                 reason="native httpserve unavailable")
@@ -28,7 +28,7 @@ pytestmark = pytest.mark.skipif(httpserve_library() is None,
 
 @pytest.fixture(scope="module")
 def frontend():
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
                      cnn_feature_dim=8)
@@ -177,8 +177,8 @@ def test_native_image_requests_match_service():
 
     from PIL import Image
 
-    from lrcn_tpu.models import vgg as vgg_mod
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.models import vgg as vgg_mod
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
                      cnn_feature_dim=8)
@@ -235,7 +235,7 @@ def test_native_image_requests_match_service():
 def test_native_features_only_service_without_store():
     """A features-only deployment (external encoder, no feature store)
     serves raw-feature requests natively; id requests get a 400."""
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
                      cnn_feature_dim=8)
@@ -371,7 +371,7 @@ def test_native_slow_header_connection_is_released():
     import socket
     import time
 
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
                      cnn_feature_dim=8)
@@ -575,8 +575,8 @@ def test_capacity_driver_smoke_closed_and_open_loop():
     import importlib.util
     import os
 
-    from lrcn_tpu.native import loadgen_binary
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.native import loadgen_binary
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     exe = loadgen_binary()
     if exe is None:
@@ -622,8 +622,8 @@ def test_capacity_driver_image_mode_smoke(tmp_path):
 
     from PIL import Image
 
-    from lrcn_tpu.native import loadgen_binary
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.native import loadgen_binary
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     exe = loadgen_binary()
     if exe is None:
@@ -670,8 +670,8 @@ def test_image_traffic_does_not_starve_id_path():
 
     from PIL import Image
 
-    from lrcn_tpu.models import vgg as vgg_mod
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.models import vgg as vgg_mod
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
                      cnn_feature_dim=8)
@@ -741,13 +741,12 @@ def test_mixed_id_feature_traffic_keeps_inflight_bounded():
     both kinds issues TWO dispatches (one grouped id, one grouped
     feature).  The regression this guards: retiring only ONE in-flight
     dispatch per cycle lets the pending queue grow by one net per cycle
-    — unbounded in-flight depth and runaway latency (measured id p50
-    80 s in the round-5 flagship mixed soak).  The pump must retire
+    — unbounded in-flight depth and runaway latency.  The pump must retire
     down to its budget every cycle, keeping the in-flight high water at
     max_inflight + the (at most 2) same-cycle issues."""
     import time
 
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
                      cnn_feature_dim=8)
@@ -813,8 +812,8 @@ def test_native_frontend_on_mesh_matches_single_device():
     grouped drain dispatches (G, B) indices P(None, 'data') against the
     replicated table (serve/service.py:_decode_rows_grouped) and every
     caption equals the single-device service's."""
-    from lrcn_tpu.parallel.mesh import make_mesh
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.parallel.mesh import make_mesh
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
                      cnn_feature_dim=8)
@@ -860,7 +859,7 @@ def test_native_trickling_header_connection_is_released():
     import socket
     import time
 
-    from lrcn_tpu.serve.native_http import NativeFrontend
+    from lrcn_jax.serve.native_http import NativeFrontend
 
     cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
                      cnn_feature_dim=8)

@@ -1,7 +1,7 @@
 """Tokenizer / vocab unit tests vs hand-computed expectations.
 
 The normalization rules under test are the reference's
-(tokenizer.jl:89-130); see lrcn_tpu/core/tokenizer.py docstrings.
+(tokenizer.jl:89-130); see lrcn_jax/core/tokenizer.py docstrings.
 """
 
 import json
@@ -9,12 +9,12 @@ import json
 import numpy as np
 import pytest
 
-from lrcn_tpu.core import (
+from lrcn_jax.core import (
     Caption, Vocab, EOS_ID, BOS_ID, UNK_ID,
     build_vocab, flickr_split, parse_coco_json, parse_flickr_tokens,
     tokenize,
 )
-from lrcn_tpu.core.tokenizer import tokenize_flickr_line, tokenize_coco_caption
+from lrcn_jax.core.tokenizer import tokenize_flickr_line, tokenize_coco_caption
 
 
 def test_flickr_line_basic():

@@ -6,14 +6,14 @@ import jax
 import numpy as np
 import pytest
 
-from lrcn_tpu.config import LRCNConfig
-from lrcn_tpu.core.tokenizer import Caption
-from lrcn_tpu.core.vocab import Vocab
-from lrcn_tpu.data import FeatureStore, bucket_batches
-from lrcn_tpu.models import lrcn
-from lrcn_tpu.train import Trainer, load_checkpoint, save_checkpoint
-from lrcn_tpu.train.checkpoint import restore_opt_state
-from lrcn_tpu.train.metrics import MetricsLogger
+from lrcn_jax.config import LRCNConfig
+from lrcn_jax.core.tokenizer import Caption
+from lrcn_jax.core.vocab import Vocab
+from lrcn_jax.data import FeatureStore, bucket_batches
+from lrcn_jax.models import lrcn
+from lrcn_jax.train import Trainer, load_checkpoint, save_checkpoint
+from lrcn_jax.train.checkpoint import restore_opt_state
+from lrcn_jax.train.metrics import MetricsLogger
 
 
 def make_dataset(n_images=12, vocab_words=15, dim=24, seed=0):
@@ -111,7 +111,7 @@ def test_gclip_applies():
 
     import optax
 
-    from lrcn_tpu.train.trainer import make_optimizer
+    from lrcn_jax.train.trainer import make_optimizer
 
     cfg = LRCNConfig(hidden=(32, 32), embed=16, cnn_feature_dim=24,
                      vocab_size=20, gclip=0.5, lr=1e-2, dropout=0.0)
@@ -199,7 +199,7 @@ def test_multi_step_fit_overfits(tiny_setup):
 
 def test_multi_step_on_mesh(tiny_setup):
     """Scanned multi-step over a DP x TP mesh (table replicated)."""
-    from lrcn_tpu.parallel import make_mesh
+    from lrcn_jax.parallel import make_mesh
 
     cfg, vocab, caps, store, batches = tiny_setup
     mesh = make_mesh((4, 1))
@@ -270,7 +270,7 @@ def test_mid_epoch_checkpoint_resume_exact(tmp_path, tiny_setup,
             calls = []
 
             # crash immediately after the SECOND mid-epoch save lands
-            import lrcn_tpu.train.trainer as trainer_mod
+            import lrcn_jax.train.trainer as trainer_mod
 
             def crashing_save(*a, **kw):
                 real_save(*a, **kw)
@@ -340,7 +340,7 @@ def test_checkpoint_save_is_atomic(tmp_path, tiny_setup):
     in-place overwrite could tear the ONLY copy mid-write)."""
     import shutil
 
-    from lrcn_tpu.train.checkpoint import recover_checkpoint
+    from lrcn_jax.train.checkpoint import recover_checkpoint
 
     cfg, vocab, caps, store, batches = tiny_setup
     params = lrcn.init_params(jax.random.PRNGKey(0), cfg)
@@ -377,7 +377,7 @@ def test_resume_refuses_different_dispatch_geometry(tmp_path, tiny_setup):
     class Crash(Exception):
         pass
 
-    import lrcn_tpu.train.trainer as trainer_mod
+    import lrcn_jax.train.trainer as trainer_mod
     real = save_checkpoint
 
     def crashing(*a, **kw):

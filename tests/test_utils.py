@@ -3,8 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from lrcn_tpu.utils import StepTimer
-from lrcn_tpu.utils.profiling import sync
+from lrcn_jax.utils import StepTimer
 
 
 def test_step_timer_basic():
@@ -22,8 +21,11 @@ def test_step_timer_basic():
 
 
 def test_sync_handles_pytrees():
-    sync({"a": jnp.ones((4,)), "b": [jnp.zeros((2, 2))]})
-    sync(np.ones(3))
+    """StepTimer waits on any pytree of outputs, host arrays included."""
+    t = StepTimer()
+    t.start({"a": jnp.ones((4,)), "b": [jnp.zeros((2, 2))]})
+    assert t.stop(np.ones(3)) >= 0
+    assert t.count == 1
 
 
 def test_measure_device_time():
@@ -33,7 +35,7 @@ def test_measure_device_time():
     import jax
     import jax.numpy as jnp
 
-    from lrcn_tpu.utils.profiling import measure_device_time_ms
+    from lrcn_jax.utils.profiling import measure_device_time_ms
 
     f = jax.jit(lambda x: (x @ x).sum())
     x = jnp.ones((256, 256), jnp.float32)
